@@ -1,4 +1,4 @@
-"""hnsw-slim-tpu: a TPU-native graph-ANN engine with HNSW-Slim's capabilities.
+"""hnsw-slim-tpu: a batched graph-ANN engine in JAX with HNSW-Slim's capabilities.
 
 Public surface (see README.md / PARITY.md):
 

@@ -1,4 +1,4 @@
-"""Global configuration for the TPU-native HNSW-Slim engine.
+"""Global configuration for the HNSW-Slim engine.
 
 Mirrors the reference's mutable globals and gflags-derived parameters
 (reference: include/core.h:30-38, main.cc:46-110) as immutable dataclasses.
@@ -120,8 +120,8 @@ class SearchConfig:
     # fraction is one extra stage). The lockstep loop makes every query pay
     # the slowest query's iterations; compaction cuts the per-iteration cost
     # by the batch ratio with bit-identical per-query results. (2, 8, 32)
-    # measured fastest at the 1M 0.95 point (scripts/probe_095.py r4 sweep:
-    # +5.5% over (4, 16) — exit the full-width loop earlier, compact deeper).
+    # exits the full-width loop early and compacts deeply; its speed on the
+    # GPU against other stage lists is not measured yet.
     straggler_stages: tuple = (2, 8, 32)
     # Cap on surviving candidate lanes per iteration after compaction
     # (0 = auto: max(2*ef, 128)). Pruned-graph pops yield ~7 unique new

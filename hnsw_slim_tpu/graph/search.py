@@ -1,4 +1,4 @@
-"""Batched best-first graph search — the engine's hottest path, TPU-first.
+"""Batched best-first graph search — the engine's hottest path.
 
 Reference: the sequential heap loops searchBaseLayerST (hnswalg_slim.h:320-457)
 and the greedy upper-level descent (hnswalg_slim.h:2040-2078). Here the whole
@@ -12,10 +12,11 @@ query batch advances in lockstep inside `lax.while_loop`s:
   query, gathers its ≤W neighbors, scores them with one [B, W, d] einsum, and
   merges with a single multi-operand `lax.sort`.
 
-TPU-specific choices (measured on v5e):
-* merge via lax.sort((dist, id, chk), num_keys=1) — top_k + take_along_axis
-  costs ~10x more (per-row payload gathers lower badly on TPU).
-* selection/pop via one-hot mask reductions, not scatter/gather.
+Design choices:
+* merge via one multi-operand lax.sort((dist, id, chk), num_keys=1) over
+  the buffer and the scored candidates, so payloads move with their keys
+  and no per-row payload gather is needed.
+* selection/pop via masks and one sort by pop rank, not scatter/gather.
 * NO visited table: candidates are deduped against the buffer, and a node
   that fell out of the sorted top-ef can never re-enter (the buffer's worst
   distance only decreases), so termination is guaranteed. Re-scanning an
@@ -82,7 +83,8 @@ def make_rank_fetch(rank: jnp.ndarray, dense_l: jnp.ndarray):
 def make_exact_scorer(vectors, vn, q, qn, metric, precision):
     """Scorer: exact fused-matmul distances (the Slim path).
 
-    Neighbor norms are recomputed from the gathered rows (a VPU reduction)
+    Neighbor norms are recomputed from the gathered rows (an elementwise
+    reduction)
     rather than gathered from the N-sized norm array — random scalar gathers
     from HBM cost as much as the row gather itself at large N.
     """
@@ -151,106 +153,6 @@ class BeamState(NamedTuple):
     buf_d: jnp.ndarray  # f32[B, EF] sorted ascending, inf padded
     buf_id: jnp.ndarray  # i32[B, EF], -1 padded
     buf_chk: jnp.ndarray  # i32[B, EF] 1 = expanded
-
-
-def _compare_exchange(ops: tuple, s: int):
-    """One bitonic half-cleaner stage: compare-exchange lanes i and i^s
-    (key = ops[0], ascending). Implemented as a reshape to [.., L/2s, 2, s]
-    so the partner pairing is a cheap relayout, not a gather."""
-    d = ops[0]
-    b, L = d.shape
-    shaped = [o.reshape(b, L // (2 * s), 2, s) for o in ops]
-    lo = [o[:, :, 0] for o in shaped]
-    hi = [o[:, :, 1] for o in shaped]
-    swap = hi[0] < lo[0]
-    out = []
-    for lo_o, hi_o in zip(lo, hi):
-        nlo = jnp.where(swap, hi_o, lo_o)
-        nhi = jnp.where(swap, lo_o, hi_o)
-        out.append(jnp.stack([nlo, nhi], axis=2).reshape(b, L))
-    return tuple(out)
-
-
-def _compare_exchange_slices(ops: tuple, lo_sl: slice, hi_sl: slice):
-    """Compare-exchange two equal-width lane slices (key = ops[0],
-    ascending); lanes outside the slices pass through."""
-    swap = ops[0][:, hi_sl] < ops[0][:, lo_sl]
-    out = []
-    for o in ops:
-        lo, hi = o[:, lo_sl], o[:, hi_sl]
-        nlo = jnp.where(swap, hi, lo)
-        nhi = jnp.where(swap, lo, hi)
-        out.append(jnp.concatenate([o[:, : lo_sl.start], nlo,
-                                    o[:, lo_sl.stop: hi_sl.start], nhi,
-                                    o[:, hi_sl.stop:]], axis=1))
-    return tuple(out)
-
-
-def bitonic_buffer_width(ef: int) -> int:
-    """Smallest physical buffer width >= ef on which merge_sorted runs:
-    a power of two or 3*2^k (the 384-lane network below). The 3*2^k widths
-    kill the pow2 cliff: ef in (256, 384] used to pay a 512-wide buffer
-    (VERDICT r4 weak #2 — ef=320/352 served ~20% below ef=256)."""
-    w = 1 << max(ef - 1, 1).bit_length()  # next pow2 >= ef
-    if w >= 4 and 3 * (w // 4) >= ef:
-        return 3 * (w // 4)
-    return w
-
-
-def _is_bitonic_width(P: int) -> bool:
-    if P & (P - 1) == 0:
-        return True
-    m = P // 3
-    return 3 * m == P and m & (m - 1) == 0
-
-
-def merge_sorted(state: BeamState, cand_d: jnp.ndarray,
-                 cand_id: jnp.ndarray) -> BeamState:
-    """Merge unsorted scored candidates into a sorted top-P buffer with a
-    bitonic merge network instead of a full lax.sort over P+cw lanes.
-
-    The buffer width P must be a power of two or 3*2^k, and cw <= P. Steps:
-      1. sort candidates ascending (width cw only);
-      2. build a descending length-P sequence [+inf pad..., reversed cands];
-      3. elementwise min against the buffer = the P smallest of the union,
-         and the result is ascending-then-descending bitonic (the first
-         half-cleaner of a 2P sorter);
-      4. half-cleaner stages sort it ascending. For P = 3m (m = 2^k) the
-         cascade is the virtual 4m network with m lanes of -inf front-pad:
-         every compare against a virtual lane is a no-op (-inf never moves),
-         so only two explicit slice stages (s=2m, s=m) precede the in-bounds
-         reshape stages s = m/2..1 (validated vs np.sort, tests/test_search).
-    ~log2(P)+1 compare stages vs lax.sort's full sorting network over P+cw
-    lanes — the buffer merge is the measured per-iteration bottleneck at
-    high ef (VERDICT r2 weak #2).
-    """
-    buf_d, buf_id, buf_chk = state
-    b, P = buf_d.shape
-    cw = cand_d.shape[1]
-    assert _is_bitonic_width(P) and cw <= P, (P, cw)
-    sd, si = lax.sort((cand_d, cand_id), dimension=1, num_keys=1)
-    pad = P - cw
-    c_d = jnp.concatenate([jnp.full((b, pad), INF), sd[:, ::-1]], axis=1)
-    c_i = jnp.concatenate(
-        [jnp.full((b, pad), -1, jnp.int32), si[:, ::-1]], axis=1
-    )
-    take = buf_d <= c_d
-    ops = (
-        jnp.where(take, buf_d, c_d),
-        jnp.where(take, buf_id, c_i),
-        jnp.where(take, buf_chk, 0),
-    )
-    if P & (P - 1) == 0:
-        s = P // 2
-    else:
-        m = P // 3
-        ops = _compare_exchange_slices(ops, slice(0, m), slice(2 * m, 3 * m))
-        ops = _compare_exchange_slices(ops, slice(m, 2 * m), slice(2 * m, 3 * m))
-        s = m // 2
-    while s >= 1:
-        ops = _compare_exchange(ops, s)
-        s //= 2
-    return BeamState(*ops)
 
 
 def beam_init(seed_id: jnp.ndarray, seed_d: jnp.ndarray, ef: int) -> BeamState:
@@ -390,12 +292,10 @@ def beam_level_scored(
         )
         buf_chk = jnp.where(selmask, 1, buf_chk)
 
-        # extract the E popped ids with ONE 2-operand sort by pop rank —
-        # E separate one-hot masked-max passes over [B, P] measured 820 us
-        # of a 3.2 ms iteration at E=16, P=512 (scripts/profile_search3.py);
-        # the sort costs ~a packsort (~30 us). Ranks are unique among
-        # selected lanes, so the first E sorted lanes are exactly the pops
-        # in ascending-distance order.
+        # extract the E popped ids with ONE 2-operand sort by pop rank
+        # instead of E one-hot masked-max passes over [B, P]. Ranks are
+        # unique among selected lanes, so the first E sorted lanes are
+        # exactly the pops in ascending-distance order.
         popkey = jnp.where(selmask, rank, jnp.int32(2**30))
         sk, sv = lax.sort((popkey, buf_id), dimension=1, num_keys=1)
         pops = jnp.where(sk[:, :e] < 2**30, sv[:, :e], -1)  # [B, E]
@@ -424,14 +324,9 @@ def beam_level_scored(
         cw = min(ew, scan_width or max(2 * ef, 128)) if e > 1 else ew
         if e > 1 and 2 * cw < ew:
             # sort/intra-dedup FIRST, then buffer-dedup only a 2*cw
-            # pre-window: the full [B, EW, P] broadcast compare was the
-            # second-largest per-iteration cost after the row gather
-            # (profile_search.py r3: 752 us vs the 2*cw form's ~190 us at
-            # EW=1024, P=512). The final small sort packs the survivors, so
+            # pre-window: a full [B, EW, P] broadcast compare is EW/(2*cw)
+            # times the work. The final small sort packs the survivors, so
             # the scan window carries no intra-dup holes either.
-            # (An offset-cumsum pack via take_along_axis was tried instead
-            # of the full sort: take_along_axis lowers to per-ELEMENT
-            # gathers (~10 ns each) and regressed the ef=384 point 3x.)
             cs0 = lax.sort(jnp.where(valid, ids, jnp.int32(2**30)),
                            dimension=1)
             dup0 = jnp.concatenate(
@@ -477,25 +372,13 @@ def beam_level_scored(
             rd, ri = lax.sort((fc_d, fc_i), dimension=1, num_keys=1)
             ftr = FilterTrack(rd[:, :ef], ri[:, :ef])
 
-        # merge: bitonic network when the buffer is a wide power of two
-        # (measured 1.4-2.2x over lax.sort at merge width >= 384+cw on v5e,
-        # scripts/exp_merge.py), else one multi-operand sort (payload
-        # gathers are slow on TPU either way)
+        # merge: one multi-operand sort of buffer + candidates
         cand_id_col = jnp.where(cand, cand_sorted, -1)
-        if ef >= 256 and _is_bitonic_width(ef) and d.shape[1] <= ef:
-            new_st = merge_sorted(
-                BeamState(buf_d, buf_id, buf_chk), d, cand_id_col
-            )
-        else:
-            cat_d = jnp.concatenate([buf_d, d], axis=1)
-            cat_i = jnp.concatenate([buf_id, cand_id_col], axis=1)
-            cat_c = jnp.concatenate(
-                [buf_chk, jnp.zeros_like(cand_sorted)], axis=1
-            )
-            sd, si, sc = lax.sort(
-                (cat_d, cat_i, cat_c), dimension=1, num_keys=1
-            )
-            new_st = BeamState(sd[:, :ef], si[:, :ef], sc[:, :ef])
+        cat_d = jnp.concatenate([buf_d, d], axis=1)
+        cat_i = jnp.concatenate([buf_id, cand_id_col], axis=1)
+        cat_c = jnp.concatenate([buf_chk, jnp.zeros_like(cand_sorted)], axis=1)
+        sd, si, sc = lax.sort((cat_d, cat_i, cat_c), dimension=1, num_keys=1)
+        new_st = BeamState(sd[:, :ef], si[:, :ef], sc[:, :ef])
         return new_st, qdone, iters + 1, hops, dcomp, pstate, ftr
 
     zero = jnp.zeros((b,), jnp.int32)
@@ -755,18 +638,10 @@ def chal_search(
     recall@10 at fixed ef=48 on 20k clustered). With `up_vecs`/`up_ids`
     (the vectors and ids of ALL level>=1 nodes, ~N/32 rows) the seeds are
     the EXACT top-seed_width upper nodes from one fused [B, n_up] distance
-    matmul — the TPU-native replacement for the whole upper-level descent
-    (one MXU pass, no iterations). Without the table, level 1 runs as a
+    matmul — the batched replacement for the whole upper-level descent
+    (one matmul, no iterations). Without the table, level 1 runs as a
     seed_width-wide beam (fallback for engines without raw vectors).
     Returns (dists f32[B, k], ids i32[B, k]) sorted ascending."""
-    if ef >= 256 and not _is_bitonic_width(ef) and ef_eff is None:
-        # round the physical buffer up to the next bitonic-merge width
-        # (pow2 or 3*2^k — ef=320/352 now get 384 lanes, not 512) so the
-        # merge runs on the bitonic network (merge_sorted); ef_eff keeps the
-        # pop window and termination bound at the requested ef — semantics
-        # unchanged
-        ef_eff = jnp.int32(ef)
-        ef = bitonic_buffer_width(ef)
     b = q.shape[0]
     qn = distance.sq_norms(q)
     cur = jnp.broadcast_to(entry.astype(jnp.int32), (b,))

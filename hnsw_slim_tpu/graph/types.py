@@ -1,4 +1,4 @@
-"""Flat-array graph containers — the TPU answer to pointer-chasing CHAL blocks.
+"""Flat-array graph containers — the device answer to pointer-chasing CHAL blocks.
 
 Reference layout (hnswalg_slim.h:1096-1106): one malloc'd block per node =
 uint16 per-level prefix offsets + packed uint32 neighbor ids. Here the whole

@@ -1,6 +1,6 @@
 """HNSW-SlimQ: pruned CHAL graph over RaBitQ codes, no raw vectors stored.
 
-TPU-native counterpart of HierarchicalNSWSlimQ (reference hnswalg_slimq.h)
+Counterpart of HierarchicalNSWSlimQ (reference hnswalg_slimq.h)
 and HnswSlimQStrategy (hnsw_slimq_strategy.h:42-165):
 
 * build: KMeans-16 centroids + cluster assignment (the files the reference
@@ -39,11 +39,10 @@ def pack_code_rows(codes: QuantizedCodes, cluster_ids) -> jnp.ndarray:
     """One u32 row per node: [bin (P/32 w) | ex (ex_bits*P/32 w) |
     f_add | f_rescale | f_add_ex | f_rescale_ex (bitcast f32) | cluster_id].
 
-    The SoA layout cost ~6 HBM gather TRANSACTIONS per scored candidate
-    (bin + ex + 4 factors + cluster id); row-gather cost on this chip is
-    per-transaction, independent of row bytes (scripts/exp_gather.py), so
-    packing everything the estimator needs into one row is a ~6x cut on the
-    scoring path's HBM transactions (VERDICT r4 next #3)."""
+    The SoA layout costs ~6 HBM gather TRANSACTIONS per scored candidate
+    (bin + ex + 4 factors + cluster id); packing everything the estimator
+    needs into one row is a ~6x cut on the scoring path's gather
+    transactions."""
     n = codes.bin_code.shape[0]
     bc = jax.lax.bitcast_convert_type
     parts = [codes.bin_code]
@@ -91,13 +90,6 @@ def _slimq_search_jit(
     stages=(), scan_width=0, seed_width=0, up_bits=None, up_fac=None,
     up_onehot=None, up_ids=None,
 ):
-    ef_eff = None
-    if ef >= 256 and not gs._is_bitonic_width(ef):
-        # bitonic-width physical buffer (pow2 or 3*2^k) for the merge
-        # network; ef_eff keeps the pop window and termination bound at the
-        # requested ef (see chal_search)
-        ef_eff = jnp.int32(ef)
-        ef = gs.bitonic_buffer_width(ef)
     b = q_rot.shape[0]
     sumq_full = jnp.sum(q_rot, axis=1)
     qn_raw = (
@@ -237,14 +229,14 @@ def _slimq_search_jit(
         if l == 0 and stages:
             state, h, dc, res = gs.beam_staged_scored(
                 fetch, score_for, state, always, ef, max_iters, pop_width,
-                ef_eff, stages, scan_width=scan_width, pop_state=res,
+                None, stages, scan_width=scan_width, pop_state=res,
                 pop_hook_for=pop_hook_for, pop_state_index=ps_index,
                 pop_state_update=ps_update,
             )
         else:
             state, h, dc, res = gs.beam_level_scored(
                 fetch, score, state, always, ef, max_iters,
-                pop_width=pop_width, ef_eff=ef_eff, pop_state=res,
+                pop_width=pop_width, pop_state=res,
                 pop_hook=(
                     pop_hook_for(None) if pop_hook_for is not None else None
                 ),

@@ -1,6 +1,6 @@
 """HNSW-SlimZero index: in-degree-guarded pruning, no reverse-edge union.
 
-TPU-native counterpart of HierarchicalNSWSlimZero (reference
+Counterpart of HierarchicalNSWSlimZero (reference
 hnswalg_slimzero.h) and HnswSlimZeroStrategy (hnsw_slimzero_strategy.h:38-141).
 Search is identical to Slim (same CHAL layout); only the conversion differs.
 """

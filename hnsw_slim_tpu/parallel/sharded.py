@@ -1,11 +1,11 @@
 """Mesh-sharded Slim search: the 100M-scale serving path.
 
 The reference serves everything from one host (hnswalg.h:123-124 single
-allocation); its only distribution axis is the HTTP client/server split. On
-TPU the scale axis is the device mesh: nodes are round-robin sharded across
+allocation); its only distribution axis is the HTTP client/server split.
+Here the scale axis is the device mesh: nodes are round-robin sharded across
 the "shard" axis (each shard holds its own subgraph + vectors), queries are
 data-parallel over the "dp" axis, and per-shard top-k results are merged with
-an all_gather + sort over ICI (SURVEY §5 "TPU plan").
+an all_gather + sort across the devices (NVLink between GPUs of one host).
 """
 
 from __future__ import annotations
@@ -181,9 +181,8 @@ class ShardedSlimIndex:
         """Stacked dense upper-level serving layout per shard: rank
         indirection i32[S, n_per] (-1 for level-0-only nodes) + dense rows
         i32[S, L, R_pad, cap] — the same layout HnswSlimIndex.densify_upper
-        builds single-chip, so the mesh path serves identical layouts
-        (VERDICT r3 weak #3: mesh serving walked upper levels via flat-CHAL
-        scalar gathers)."""
+        builds single-device, so the mesh path serves identical layouts
+        instead of walking upper levels via flat-CHAL scalar gathers."""
         off = np.asarray(self.arrays["off"])
         nbr = np.asarray(self.arrays["nbr"])
         lvl = np.asarray(self.arrays["lvl"])
@@ -284,6 +283,29 @@ class ShardedSlimIndex:
         return 24 * n_total + 4 * total_nbrs
 
 
+def check_matches_host_merge(d, i, shard_indexes, q, k: int) -> None:
+    """Assert that mesh results (d, i) equal the per-shard searches merged on
+    the host: distances to rtol 1e-5, and the ID sets of every row whose
+    distances are untied (ties may order differently). shard_indexes as in
+    ShardedSlimIndex.from_indexes, with the mesh's search config."""
+    flat_d, flat_i = [], []
+    for sub, gids in shard_indexes:
+        sd, sids = sub.search(q, k=k)
+        sids = np.asarray(sids)
+        flat_d.append(np.asarray(sd))
+        flat_i.append(np.where(sids >= 0, gids[np.maximum(sids, 0)], -1))
+    cat_d = np.concatenate(flat_d, axis=1)
+    cat_i = np.concatenate(flat_i, axis=1)
+    order = np.argsort(cat_d, axis=1, kind="stable")[:, :k]
+    ref_d = np.take_along_axis(cat_d, order, axis=1)
+    ref_i = np.take_along_axis(cat_i, order, axis=1)
+    np.testing.assert_allclose(np.asarray(d), ref_d, rtol=1e-5, atol=1e-5)
+    for row_mesh, row_flat, dm, df in zip(np.asarray(i), ref_i, d, ref_d):
+        assert set(row_mesh.tolist()) == set(row_flat.tolist()) or np.allclose(
+            dm, df, rtol=1e-5, atol=1e-5
+        ), (row_mesh, row_flat)
+
+
 @functools.partial(
     jax.jit,
     static_argnames=(
@@ -320,7 +342,7 @@ def _sharded_search_jit(mesh, arrays, q, *, ef, k, max_iters, metric,
             dense_up=dense_up,
             rank_up=rank_up[0] if rank_up is not None else None,
         )
-        # merge across shards over ICI
+        # merge across shards
         dg = lax.all_gather(d, "shard")  # [S, b, k]
         ig = lax.all_gather(gi, "shard")
         b = q.shape[0]

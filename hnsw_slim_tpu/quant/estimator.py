@@ -2,8 +2,8 @@
 
 The reference estimates <q, x_u> by AND+popcount over 4-bit query planes
 (estimator.hpp:164-188 via warmup_space.hpp:8-60) because AVX popcount is the
-fastest CPU path. On TPU the same quantity is one fused unpack + dot on the
-VPU/MXU, using the EXACT rotated query (the reference's 4-bit query
+fastest CPU path. On the device the same quantity is one fused unpack +
+dot, using the EXACT rotated query (the reference's 4-bit query
 quantization exists only to enable popcount; mask_ip_x0_q in
 split_single_fulldist :133-159 is the exact-query variant we match).
 

@@ -10,7 +10,7 @@ vectorized over the batch: signs = (residual > 0), factors = norms and dots
 
 Codes are stored as uint32 bit-planes: bin_code u32[N, P/32], ex planes
 u32[N, ex_bits, P/32] — the same bits/dim as the reference's packed layout,
-shaped for TPU-side unpack + matmul estimation.
+shaped for device-side unpack + matmul estimation.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Port of rabitqlib::FhtKacRotator (reference utils/rotator.hpp:207-310): the
 whole state is 4*padded_dim flip bits; rotate() = 4 rounds of
 [sign flip -> FHT -> scale 1/sqrt(dim)]. The reference's 19.7k-line unrolled
 AVX kernels (utils/fht_avx.hpp) collapse into a log2(P)-step reshape
-butterfly on the VPU. Dimensions are always padded to a power of two (the
+butterfly of elementwise ops. Dimensions are always padded to a power of two (the
 reference's non-pow2 kacs_walk branch is unnecessary here).
 """
 

@@ -15,7 +15,7 @@ import zlib
 import numpy as np
 
 from ..persist import patch as patchlib
-from . import query_pb2
+from . import wire
 
 
 class SlimClient:
@@ -40,32 +40,24 @@ class SlimClient:
             c.close()
 
     def query(self, vector: np.ndarray, k: int = 10):
-        req = query_pb2.QueryRequest(
-            vector=[float(x) for x in vector], k=k
-        )
-        data, _ = self._post("/query", req.SerializeToString())
-        resp = query_pb2.QueryResponse()
-        resp.ParseFromString(data)
-        return np.asarray(resp.distances, np.float32), np.asarray(
-            resp.labels, np.int64
-        )
+        req = wire.QueryRequest(vector=vector, k=k)
+        data, _ = self._post("/query", wire.encode(req))
+        resp = wire.decode(wire.QueryResponse, data)
+        return resp.distances, np.asarray(resp.labels, np.int64)
 
     def set_ef(self, ef: int) -> bool:
         data, _ = self._post(
-            "/setEf",
-            query_pb2.SetEfRequest(ef_search=ef).SerializeToString(),
+            "/setEf", wire.encode(wire.SetEfRequest(ef_search=ef))
         )
-        resp = query_pb2.SetEfResponse()
-        resp.ParseFromString(data)
+        resp = wire.decode(wire.SetEfResponse, data)
         return resp.status == "ok" and resp.new_ef_search == ef
 
     def update_index(self, ids, vectors: np.ndarray, compress: bool = True):
         """Send a vector batch; returns the first patch chunk + finished flag
         (zlib request compression mirrors hnsw_slim_client_update.cc:83-84)."""
-        req = query_pb2.UpdateIndexRequest()
-        for i, v in zip(ids, vectors):
-            req.vectors.add(id=int(i), vector=[float(x) for x in v])
-        body = req.SerializeToString()
+        body = wire.encode(wire.UpdateIndexRequest(vectors=[
+            wire.VectorData(id=int(i), vector=v) for i, v in zip(ids, vectors)
+        ]))
         headers = {}
         if compress:
             body = zlib.compress(body)

@@ -1,6 +1,6 @@
 // Parity benchmark harness: compiles the UNMODIFIED reference engine headers
 // (mounted read-only at /root/reference) and runs build + slim conversion +
-// search on a dataset, so the TPU engine can be compared against the actual
+// search on a dataset, so the JAX engine can be compared against the actual
 // reference implementation on identical data. This binary is evaluation
 // tooling only — no reference code is incorporated into hnsw_slim_tpu.
 //
@@ -96,8 +96,8 @@ static std::vector<int> parse_ef_list(const std::string& ef_list) {
 }
 
 // ---------------------------------------------------------------------------
-// dump: export a reference-built slim/slimq CHAL graph topology so the TPU
-// engine can serve the exact same graph (same-graph CPU-vs-TPU comparison,
+// dump: export a reference-built slim/slimq CHAL graph topology so the JAX
+// engine can serve the exact same graph (same-graph CPU-vs-device comparison,
 // and reference-scale builds without paying our device build path).
 // Format: u32 magic 'HSLG' | u32 n | i32 maxlevel | u32 entry | i32 Lt |
 //   u32 maxM | u32 maxM0 | per node: i32 level | u32 total |
@@ -145,7 +145,7 @@ static int dump_slim_graph(SlimT& slim, const char* path) {
 }
 
 // ---------------------------------------------------------------------------
-// dump the UNPRUNED vanilla HNSW adjacency (per-level link lists) so the TPU
+// dump the UNPRUNED vanilla HNSW adjacency (per-level link lists) so the JAX
 // engine can take over a reference-built index as its mutable serving state
 // (update-latency benchmarks at reference scale without paying our build).
 // Format: u32 magic 'HNSG' | u32 n | i32 maxlevel | u32 entry | u32 maxM |

@@ -2,7 +2,7 @@
 
 Round-robin shards the 8M synthetic base over 8 shards; each shard's slim
 graph is built by the reference C++ binary (the established graph-import
-oracle path — reference-speed CPU builds feeding TPU serving, SURVEY §7
+oracle path — reference-speed CPU builds feeding device serving, SURVEY §7
 step 2), then everything is assembled into the stacked [S, ...] arrays
 ShardedSlimIndex serves. Output: .bench_cache/shards8m/*.slimgraph + meta.
 
@@ -17,7 +17,8 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 from hnsw_slim_tpu.utils.data import clustered  # noqa: E402
@@ -26,8 +27,8 @@ from hnsw_slim_tpu.utils.io import write_fvecs  # noqa: E402
 N, DIM, S = 8_000_000, 128, 8
 NQ = 1024
 SEED = int(os.environ.get("SHARDS_SEED", 7))
-OUT = os.environ.get("SHARDS_OUT", "/root/repo/.bench_cache/shards8m")
-HARNESS = "/root/repo/parity/ref_harness"
+OUT = os.environ.get("SHARDS_OUT", os.path.join(REPO, ".bench_cache/shards8m"))
+HARNESS = os.path.join(REPO, "parity/ref_harness")
 
 
 def main():

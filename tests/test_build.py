@@ -126,7 +126,7 @@ def test_degenerate_duplicates_and_zeros():
 
 def test_auto_build_strategy_selection():
     # defaults must pick the at-scale-servable build without a strategy knob
-    # (VERDICT r4 item 6): NND only below the convergence-safe size
+    # NND only below the convergence-safe size
     from hnsw_slim_tpu.index.hnsw import AUTO_NND_MAX_N, resolve_build_strategy
 
     assert resolve_build_strategy("auto", 1_000) == "nnd"

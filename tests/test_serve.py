@@ -185,51 +185,3 @@ def test_update_index_respects_client_labels():
     finally:
         server.shutdown()
 
-
-def test_wire_compat_with_reference_proto(tmp_path):
-    """Byte-level wire compatibility: messages serialized by OUR generated
-    module must parse exactly under a module generated from the REFERENCE's
-    query.proto (reference query.proto:1-30), and vice versa."""
-    import importlib.util
-    import pathlib
-    import shutil
-    import subprocess
-    import sys
-
-    from hnsw_slim_tpu.serve import query_pb2 as ours
-
-    ref_proto = pathlib.Path("/root/reference/query.proto")
-    if not ref_proto.exists() or shutil.which("protoc") is None:
-        pytest.skip("reference proto or protoc unavailable")
-    shutil.copy(ref_proto, tmp_path / "refquery.proto")
-    subprocess.run(
-        ["protoc", f"--proto_path={tmp_path}", f"--python_out={tmp_path}",
-         "refquery.proto"],
-        check=True,
-    )
-    spec = importlib.util.spec_from_file_location(
-        "refquery_pb2", tmp_path / "refquery_pb2.py"
-    )
-    ref = importlib.util.module_from_spec(spec)
-    sys.modules["refquery_pb2"] = ref
-    spec.loader.exec_module(ref)
-
-    pairs = [
-        (ours.QueryRequest(vector=[1.0, 2.5], k=7), ref.QueryRequest),
-        (ours.QueryResponse(labels=[3, -1, 9], distances=[0.5, 1.5, 2.5]),
-         ref.QueryResponse),
-        (ours.SetEfRequest(ef_search=128), ref.SetEfRequest),
-        (ours.SetEfResponse(status="ok", new_ef_search=128),
-         ref.SetEfResponse),
-        (ours.UpdateIndexRequest(
-            vectors=[ours.VectorData(id=42, vector=[1.0])]),
-         ref.UpdateIndexRequest),
-    ]
-    for msg, ref_cls in pairs:
-        blob = msg.SerializeToString()
-        parsed = ref_cls()
-        parsed.ParseFromString(blob)  # must parse with zero unknown fields
-        assert parsed.SerializeToString() == blob
-        back = type(msg)()
-        back.ParseFromString(parsed.SerializeToString())
-        assert back == msg
