@@ -84,9 +84,9 @@ def make_exact_scorer(vectors, vn, q, qn, metric, precision):
     """Scorer: exact fused-matmul distances (the Slim path).
 
     Neighbor norms are recomputed from the gathered rows (an elementwise
-    reduction)
-    rather than gathered from the N-sized norm array — random scalar gathers
-    from HBM cost as much as the row gather itself at large N.
+    reduction) rather than gathered from the N-sized norm array: a random
+    scalar gather per neighbor is one more scattered memory access for
+    data the row already holds.
     """
     del vn  # kept in the signature for call-site compatibility
 
@@ -314,12 +314,13 @@ def beam_level_scored(
         valid = (ids >= 0) & ~qdone[:, None]
 
         # compact before the gather: slim rows average ~a quarter of the
-        # padded width, and vector-row gathers are HBM-transaction-bound —
-        # sorting the candidate ids packs the valid ones first (and makes
-        # cross-expansion duplicates adjacent for free). scan_width caps the
-        # surviving lanes (pruned-graph pops yield ~7 unique-new neighbors
-        # each, so a tight cap cuts the gather+score+merge width with no
-        # measurable recall cost; overflow lanes are simply dropped)
+        # padded width, and each gathered vector row is a scattered memory
+        # access — sorting the candidate ids packs the valid ones first
+        # (and makes cross-expansion duplicates adjacent for free).
+        # scan_width caps the surviving lanes (pruned-graph pops yield ~7
+        # unique-new neighbors each, so a tight cap cuts the
+        # gather+score+merge width with no measurable recall cost;
+        # overflow lanes are simply dropped)
         ew = ids.shape[1]
         cw = min(ew, scan_width or max(2 * ef, 128)) if e > 1 else ew
         if e > 1 and 2 * cw < ew:
@@ -376,8 +377,12 @@ def beam_level_scored(
         cand_id_col = jnp.where(cand, cand_sorted, -1)
         cat_d = jnp.concatenate([buf_d, d], axis=1)
         cat_i = jnp.concatenate([buf_id, cand_id_col], axis=1)
-        cat_c = jnp.concatenate([buf_chk, jnp.zeros_like(cand_sorted)], axis=1)
-        sd, si, sc = lax.sort((cat_d, cat_i, cat_c), dimension=1, num_keys=1)
+        cat_c = jnp.concatenate(
+            [buf_chk, jnp.zeros_like(cand_sorted)], axis=1
+        )
+        sd, si, sc = lax.sort(
+            (cat_d, cat_i, cat_c), dimension=1, num_keys=1
+        )
         new_st = BeamState(sd[:, :ef], si[:, :ef], sc[:, :ef])
         return new_st, qdone, iters + 1, hops, dcomp, pstate, ftr
 
@@ -684,11 +689,10 @@ def chal_search(
             seed_width = sps * seed_strata
             # top-sps per stratum via sps fused argmin/min passes, NOT
             # lax.top_k: top_k lowers to a full stable sort whose f32+s32
-            # temps are 2x the dmat bytes — 8 GB extra HBM at 16M
-            # (b=1024 x 16 strata x 65536 padded upper rows), which killed
-            # the round-5 16M serve compile. sps is tiny (seed_width/strata,
-            # 2 at 16M), so k max-reduce passes fuse into the where-chain
-            # and materialize nothing beyond dmat itself.
+            # temps are 2x the dmat bytes — 8 GB extra device memory at 16M
+            # (b=1024 x 16 strata x 65536 padded upper rows). sps is tiny
+            # (seed_width/strata, 2 at 16M), so k max-reduce passes fuse
+            # into the where-chain and materialize nothing beyond dmat.
             d3 = dmat.reshape(b, seed_strata, u)
             iot_u = jnp.arange(u, dtype=jnp.int32)
             sds, poss = [], []
