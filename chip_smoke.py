@@ -169,9 +169,9 @@ class Smoke:
         self.base, self.queries = clustered(
             s.n, s.dim, n_queries=s.n_queries, n_clusters=s.n_clusters,
             seed=7, scale=0.3)
+        # same centers (seed 7), new points: a smaller n shifts the stream
         self.inserts, _ = clustered(
-            s.n_insert, s.dim, n_clusters=s.n_clusters, seed=7, scale=0.3,
-            point_seed=8)
+            s.n_insert, s.dim, n_clusters=s.n_clusters, seed=7, scale=0.3)
         # exact GT on the device at Precision.HIGHEST (full fp32, no TF32)
         gt_d, self.gt = BruteForceIndex(self.base).search(self.queries, k=10)
 
@@ -394,6 +394,9 @@ class Smoke:
               f"{rec_cpu:.4f}), with seed_width=32 {rec_seeded:.4f}")
         _check(same >= 0.999, same)
         _check(abs(rec - rec_cpu) <= 0.005, (rec, rec_cpu))
+        # a floor under the 0.513-0.515 measured at 1M: unseeded SlimZero
+        # is far below Slim at this scale, but must not fall further
+        _check(rec >= 0.48, rec)
         _check(rec_seeded >= 0.90, rec_seeded)
 
     # ---- 6 ------------------------------------------------------------

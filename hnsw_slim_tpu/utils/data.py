@@ -17,17 +17,10 @@ def clustered(
     n_clusters: int = 64,
     seed: int = 0,
     scale: float = 0.15,
-    point_seed: int | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """(base f32[n, dim], queries f32[n_queries, dim]) clustered Gaussians.
-
-    The cluster centers come from `seed`. `point_seed`, when given, draws
-    the points around those same centers from a generator of its own: a
-    second stream of the same distribution (inserts after a build)."""
+    """(base f32[n, dim], queries f32[n_queries, dim]) clustered Gaussians."""
     rng = np.random.default_rng(seed)
     centers = rng.standard_normal((n_clusters, dim)).astype(np.float32)
-    if point_seed is not None:
-        rng = np.random.default_rng(point_seed)
     asn = rng.integers(0, n_clusters, size=n)
     base = centers[asn] + scale * rng.standard_normal((n, dim)).astype(np.float32)
     if n_queries:

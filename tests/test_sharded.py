@@ -2,10 +2,13 @@
 
 import numpy as np
 import jax
+import pytest
 
 from hnsw_slim_tpu.config import HnswConfig, SlimConfig
 from hnsw_slim_tpu.index.bruteforce import BruteForceIndex
-from hnsw_slim_tpu.parallel.sharded import ShardedSlimIndex, make_mesh
+from hnsw_slim_tpu.parallel.sharded import (
+    ShardedSlimIndex, check_matches_host_merge, make_mesh,
+)
 from hnsw_slim_tpu.utils.data import clustered
 
 
@@ -99,23 +102,15 @@ def test_sharded_from_prebuilt_indexes():
 
     # mesh == flat parity (README claim): per-shard searches merged on the
     # host must match the shard_map + all_gather path, dense layouts on
-    flat_d, flat_i = [], []
-    for sub, gids in shard_indexes:
+    for sub, _ in shard_indexes:
         sub.scfg = SearchConfig(ef=32)
         sub.densify_level0()
         sub.densify_upper()
-        sd, sids = sub.search(queries, k=5)
-        flat_d.append(np.asarray(sd))
-        flat_i.append(np.where(np.asarray(sids) >= 0,
-                               gids[np.maximum(np.asarray(sids), 0)], -1))
-    cat_d = np.concatenate(flat_d, axis=1)
-    cat_i = np.concatenate(flat_i, axis=1)
-    order = np.argsort(cat_d, axis=1, kind="stable")[:, :5]
-    ref_d = np.take_along_axis(cat_d, order, axis=1)
-    ref_i = np.take_along_axis(cat_i, order, axis=1)
-    np.testing.assert_allclose(np.asarray(d), ref_d, rtol=1e-5, atol=1e-5)
-    for row_mesh, row_flat, dm, df in zip(ids, ref_i, d, ref_d):
-        # distance ties may order differently; ID multisets must agree
-        # wherever distances are untied
-        assert set(row_mesh.tolist()) == set(row_flat.tolist()) or \
-            np.allclose(dm, df, rtol=1e-5, atol=1e-5), (row_mesh, row_flat)
+    check_matches_host_merge(d, ids, shard_indexes, queries, 5)
+
+    # the check compares IDs, not only distances: right distances under a
+    # wrong global-ID table must fail it
+    swapped = [(sub, shard_indexes[(si + 1) % s][1])
+               for si, (sub, _) in enumerate(shard_indexes)]
+    with pytest.raises(AssertionError, match="mesh ids"):
+        check_matches_host_merge(d, ids, swapped, queries, 5)
